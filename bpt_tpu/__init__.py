@@ -1,4 +1,4 @@
-"""bpt_tpu — a TPU-native wavefront bidirectional path tracer.
+"""bpt_tpu — a wavefront bidirectional path tracer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the full capability surface of the
 C++ reference (teehee567/Bidirectional-Path-Tracer): triangle scenes, median

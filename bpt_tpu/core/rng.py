@@ -31,9 +31,8 @@ def wave_uniforms(key: jax.Array, ray_ids: jax.Array, bounce, n: int, dtype=jnp.
 
 def uniform_rows(key: jax.Array, ray_ids: jax.Array, bounce, n: int, dtype=jnp.float32):
     """Same stream as wave_uniforms, but returned as n separate [B] rows —
-    the TPU-friendly lane layout for the SoA hot path ([B, n] arrays put n
-    on the 128-wide lane axis at ~7% utilization).  The transpose happens
-    once per wave on a tiny array."""
+    the layout of the SoA hot path, where every per-ray quantity is a flat
+    [B] array.  The transpose happens once per wave on a tiny array."""
     u = wave_uniforms(key, ray_ids, bounce, n, dtype=dtype)  # [B, n]
     ut = u.T  # [n, B]
     return [ut[i] for i in range(n)]

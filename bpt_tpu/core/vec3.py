@@ -1,10 +1,9 @@
 """Component-SoA 3-vectors: x/y/z as separate [B] arrays.
 
-On TPU, an [B,3] array maps its minor dim onto the 128-wide vector lanes —
-3/128 utilization.  Keeping each component a flat [B] array makes every
-elementwise op run at full lane width (measured 5x faster on the
-intersection kernel).  This module is the hot-path vector algebra; the
-[..., 3] API in core.vecmath remains for boundaries and tests.
+Keeping each component a flat [B] array makes every elementwise op a
+contiguous, unit-stride wave (no [B,3] minor-dimension shuffles).  This
+module is the hot-path vector algebra; the [..., 3] API in core.vecmath
+remains for boundaries and tests.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Batched 3-vector algebra on ``[..., 3]`` arrays.
 
-TPU-native equivalent of the reference's scalar ``vec3`` class
+Batched equivalent of the reference's scalar ``vec3`` class
 (reference: src/core/vec3.h:1-161).  Every op is a pure jnp function over
-stacked-SoA arrays so the VPU sees wide lanes; rejection-sampling loops in the
+stacked arrays; rejection-sampling loops in the
 reference become analytic (polar) sampling in :mod:`bpt_tpu.core.sampling`.
 """
 

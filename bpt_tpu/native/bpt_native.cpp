@@ -1,6 +1,6 @@
 // Native host runtime for bpt_tpu: BVH builder + OBJ parser.
 //
-// The TPU never sees this code — it is the host-side scene compiler
+// The device never sees this code — it is the host-side scene compiler
 // (the analog of the reference's C++ scene_loader.h + bvh.h startup path),
 // exposed to Python through a plain C ABI via ctypes.
 //
@@ -83,10 +83,10 @@ void build_rec(BuildCtx& c, int64_t* idx, int64_t n) {
         std::stable_sort(idx, idx + n, [&](int64_t a, int64_t b) {
             return c.tri_min[3 * a + axis] < c.tri_min[3 * b + axis];
         });
-        // packing-aware median: round to a 32-multiple so maximal
-        // <=32-tri subtrees fill their TPU streaming roll blocks
-        // (measured -23% tile-union visits on coffee-91k; must match
-        // scene/bvh.py rec() exactly — parity asserted by test_native)
+        // median rounded to a 32-multiple: nearly every leaf then holds
+        // 2 triangles (fewer nodes, a faster GPU traversal; see
+        // scene/bvh.py rec(), which this must match exactly — parity
+        // asserted by test_native)
         const int64_t kPack = 32;
         int64_t mid;
         if (n > kPack) {

@@ -4,8 +4,10 @@
         --size 64x64 --spp 16 --output out.npy
 
 Everything after ``--`` is forwarded to every `bpt_tpu.parallel.worker`
-(see that module for the render flags).  On a real cluster, skip this
-launcher and start one worker per host with a shared --coordinator.
+(see that module for the render flags).  ``--local-devices 0`` runs one
+worker per card of this host, each seeing only its own card.  On a real
+cluster, skip this launcher and start one worker per host with a shared
+--coordinator.
 """
 
 from __future__ import annotations

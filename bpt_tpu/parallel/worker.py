@@ -23,7 +23,9 @@ def main(argv=None) -> int:
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--coordinator", default="localhost:29500")
     ap.add_argument("--local-devices", type=int, default=0,
-                    help="force N virtual CPU devices (0 = real devices)")
+                    help="force N virtual CPU devices (0 = the cards this "
+                         "process may see; the launcher gives each worker "
+                         "one)")
     ap.add_argument("--scene", default="cornell",
                     help="scene YAML path, or 'cornell' for the preset")
     ap.add_argument("--size", default="32x32")
@@ -31,12 +33,6 @@ def main(argv=None) -> int:
     ap.add_argument("--max-depth", type=int, default=3)
     ap.add_argument("--integrator", default="pt",
                     choices=["pt", "bdpt", "bdpt-mis"])
-    ap.add_argument("--fast", default="auto",
-                    choices=["auto", "always", "never", "wave"],
-                    help="shard-step selection (parallel/mesh.py): "
-                         "'wave' forces the pt_wave step, interpret-mode "
-                         "off-TPU — used by the multi-process fast-path "
-                         "tests")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--output", default="",
                     help=".npy (raw sample sum) or .png (tonemapped); "
@@ -75,8 +71,7 @@ def main(argv=None) -> int:
         samples_per_pixel=args.spp, max_depth=args.max_depth,
         integrator=args.integrator)
 
-    fb, spp = render_multiprocess(scene, cfg, seed=args.seed,
-                                  fast=args.fast)
+    fb, spp = render_multiprocess(scene, cfg, seed=args.seed)
     print(f"[worker {args.process_id}/{args.num_processes}] "
           f"devices={jax.device_count()} (local {jax.local_device_count()}) "
           f"fb={fb.shape} spp={spp}", flush=True)

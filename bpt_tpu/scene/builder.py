@@ -1,6 +1,6 @@
 """Programmatic scene construction -> frozen SceneArrays.
 
-This is the TPU-native analog of the reference's triangle_collection +
+This is the device-array analog of the reference's triangle_collection +
 helper constructors (src/objects/primatives/triangle.h:135-309): triangles
 accumulate host-side in float64, transforms are baked at add time (as the
 reference's add_box_triangles already does), and ``build()`` flattens
@@ -340,27 +340,6 @@ class SceneBuilder:
         if use_bvh is None:
             use_bvh = T > brute_force_threshold
 
-        # BVH-subtree-aligned cluster boundaries for the TPU streaming
-        # traversal (clusters.py); chop fallback if the subtree greed
-        # exceeds the SMEM table capacity (very loose trees)
-        cluster_splits: tuple = ()
-        super_splits: tuple = ()
-        if use_bvh:
-            from bpt_tpu.ops.pallas.clusters import CLUSTER_TRIS, MAX_CLUSTERS, SUPER
-
-            cs = bvh_mod.subtree_splits(
-                tree["bvh_skip"], tree["bvh_count"], CLUSTER_TRIS)
-            if len(cs) - 1 <= MAX_CLUSTERS:
-                ss = bvh_mod.subtree_splits(
-                    tree["bvh_skip"], tree["bvh_count"], CLUSTER_TRIS * SUPER)
-                # fill-merge: maximal subtrees average ~70% of the block
-                # size; fuller blocks mean proportionally fewer roll
-                # visits (each visit costs a full CLUSTER_TRIS-step roll)
-                super_splits = bvh_mod.merge_splits(
-                    ss, (0, T), CLUSTER_TRIS * SUPER)
-                cluster_splits = bvh_mod.merge_splits(
-                    cs, super_splits, CLUSTER_TRIS)
-
         # volumes
         if self._vol_tris:
             vverts = np.array([(t[0], t[1], t[2]) for t in self._vol_tris], np.float64)
@@ -412,10 +391,4 @@ class SceneBuilder:
             has_textures=bool(tex_specs),
             has_noise=has_noise,
             lights_are_world=lights_are_world,
-            cluster_splits=cluster_splits,
-            super_splits=super_splits,
-            has_delta_mats=bool(
-                np.any((mtypes == MAT_METAL) | (mtypes == MAT_DIELECTRIC))),
-            # volume phase materials are isotropic entries in the same table
-            has_iso_mats=bool(np.any(mtypes == MAT_ISOTROPIC)),
         )

@@ -31,7 +31,6 @@ import sys
 from dataclasses import dataclass
 
 import jax.numpy as jnp
-import yaml
 
 from bpt_tpu.scene.builder import MaterialSpec, SceneBuilder
 from bpt_tpu.scene.textures import TextureSpec
@@ -410,6 +409,8 @@ def load_scene_from_yaml(
     verbose=True,
 ) -> LoadedScene:
     """load_scene_from_yaml (scene_loader.h:480-523)."""
+    import yaml  # only YAML scenes need the parser
+
     with open(path, "r") as f:
         root = yaml.safe_load(f)
     if not isinstance(root, dict):

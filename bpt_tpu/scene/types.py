@@ -147,20 +147,6 @@ class SceneArrays:
     use_bvh: bool = field(metadata=dict(static=True), default=True)
     has_textures: bool = field(metadata=dict(static=True), default=False)
     has_noise: bool = field(metadata=dict(static=True), default=False)
-    # BVH-subtree-aligned cluster boundaries for the TPU streaming
-    # traversal (ops/pallas/clusters.py): tri-range split points such
-    # that cluster k covers DFS-ordered tris [cs[k], cs[k+1]) and is a
-    # complete BVH subtree (tight AABB).  () -> fixed-stride chop.
-    # Static: the cluster STRUCTURE must be known at trace time.
-    cluster_splits: tuple = field(metadata=dict(static=True), default=())
-    super_splits: tuple = field(metadata=dict(static=True), default=())
-    # material classes present in the scene (any material table entry or
-    # volume phase function).  The megakernels statically skip the delta
-    # (metal/dielectric) and isotropic shading machinery — and their RNG
-    # draw computations — when a class is absent; draw SLOT layout never
-    # changes, so results are bitwise identical.
-    has_delta_mats: bool = field(metadata=dict(static=True), default=True)
-    has_iso_mats: bool = field(metadata=dict(static=True), default=True)
     lights_are_world: bool = field(metadata=dict(static=True), default=False)
 
     @property
@@ -178,10 +164,6 @@ _register(
         "has_textures",
         "has_noise",
         "lights_are_world",
-        "cluster_splits",
-        "super_splits",
-        "has_delta_mats",
-        "has_iso_mats",
     ),
 )
 

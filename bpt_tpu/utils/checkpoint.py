@@ -5,12 +5,9 @@ memory, src/camera.h:55,139-142).  Here the accumulated sample sum + a
 progress counter + seed snapshot to an .npz after each completed unit;
 resume reloads and continues the running sum.
 
-Two unit kinds exist, matching the two render loop shapes:
-  - "stratum": one sample stratum over all pixels (jnp + pt_wave paths)
-  - "chunk":   one pixel chunk with ALL spp strata fused in-kernel
-               (the fused megakernel path)
-A checkpoint written by one loop shape resumes only on the same shape;
-the render driver falls back to the matching path automatically.
+The unit is one sample stratum over all pixels ("stratum", RNG stream
+"jnp").  Checkpoints of other kinds or streams, written by render paths
+that no longer exist, are refused on resume (models/render.py).
 """
 
 from __future__ import annotations

@@ -72,52 +72,6 @@ def test_bdpt_distributed(scene):
     np.testing.assert_array_equal(fb, single.framebuffer_sum)
 
 
-def test_fused_megakernel_distributed_pt(scene):
-    """fast="always": one megakernel launch per device shard (interpret on
-    CPU) == whole-image single-call fused megakernel, bitwise."""
-    from bpt_tpu.models.camera import camera_constants as _cc
-    from bpt_tpu.ops.pallas.pt_kernel import camera_table, pt_megakernel_pixels
-
-    cfg = _cfg(image_width=8)
-    cc = _cc(cfg, scene.dtype)
-    S = cfg.sqrt_spp
-    npix = cc.width * cc.height
-    pix = jnp.arange(npix, dtype=jnp.int32)
-    i = (pix % cc.width).astype(jnp.float32)
-    j = (pix // cc.width).astype(jnp.float32)
-    key = jax.random.PRNGKey(3)
-    rx, ry, rz, *_ = pt_megakernel_pixels(
-        scene, i, j, i * 0, j * 0, pix, camera_table(cc), key,
-        cfg.max_depth, interpret=True, spp_loop=S * S, sqrt_spp=S,
-    )
-    want = np.stack([np.asarray(rx), np.asarray(ry), np.asarray(rz)], -1)
-    fb, _ = render_distributed(scene, cfg, mesh=make_mesh(8), seed=3,
-                               fast="always")
-    np.testing.assert_array_equal(fb.reshape(npix, 3), want)
-
-
-def test_fused_megakernel_distributed_bdpt(scene):
-    from bpt_tpu.models.camera import camera_constants as _cc
-    from bpt_tpu.ops.pallas.bdpt_kernel import bdpt_megakernel_pixels
-    from bpt_tpu.ops.pallas.pt_kernel import camera_table
-
-    cfg = _cfg(integrator="bdpt", image_width=8, samples_per_pixel=1)
-    cc = _cc(cfg, scene.dtype)
-    npix = cc.width * cc.height
-    pix = jnp.arange(npix, dtype=jnp.int32)
-    i = (pix % cc.width).astype(jnp.float32)
-    j = (pix // cc.width).astype(jnp.float32)
-    key = jax.random.PRNGKey(4)
-    rx, ry, rz, *_ = bdpt_megakernel_pixels(
-        scene, i, j, pix, camera_table(cc), key, cfg.max_depth,
-        cfg.sqrt_spp, interpret=True,
-    )
-    want = np.stack([np.asarray(rx), np.asarray(ry), np.asarray(rz)], -1)
-    fb, _ = render_distributed(scene, cfg, mesh=make_mesh(8), seed=4,
-                               fast="always")
-    np.testing.assert_array_equal(fb.reshape(npix, 3), want)
-
-
 def test_host_chip_2d_mesh_matches_single_device(scene):
     """Multi-host-SHAPED ('host','chip') mesh: pixels shard over the
     chip (ICI) axis, strata over the host (DCN) axis with one psum per
@@ -158,143 +112,93 @@ def test_bdpt_mis_distributed_matches_single_device(scene):
     np.testing.assert_array_equal(fb, single.framebuffer_sum)
 
 
-def test_fused_megakernel_distributed_bdpt_mis(scene):
-    """fast='always' + bdpt-mis dispatches the MIS megakernel (round 3;
-    before that this combination raised — the fused kernel had no MIS
-    weights, advisor round-2 finding)."""
-    from bpt_tpu.models.camera import camera_constants as _cc
-    from bpt_tpu.ops.pallas.bdpt_kernel import bdpt_megakernel_pixels
-    from bpt_tpu.ops.pallas.pt_kernel import camera_table
-
-    cfg = _cfg(integrator="bdpt-mis", image_width=8, samples_per_pixel=1,
-               max_depth=3)
-    cc = _cc(cfg, scene.dtype)
-    npix = cc.width * cc.height
-    pix = jnp.arange(npix, dtype=jnp.int32)
-    i = (pix % cc.width).astype(jnp.float32)
-    j = (pix // cc.width).astype(jnp.float32)
-    key = jax.random.PRNGKey(6)
-    rx, ry, rz, *_ = bdpt_megakernel_pixels(
-        scene, i, j, pix, camera_table(cc), key, cfg.max_depth,
-        cfg.sqrt_spp, interpret=True, mis=True,
-    )
-    want = np.stack([np.asarray(rx), np.asarray(ry), np.asarray(rz)], -1)
-    fb, _ = render_distributed(scene, cfg, mesh=make_mesh(8), seed=6,
-                               fast="always")
-    np.testing.assert_array_equal(fb.reshape(npix, 3), want)
-
-
-def test_wave_shard_step_matches_fused_and_is_mesh_invariant():
-    """fast='wave' (round 3): per-shard pt_wave with per-shard
-    inter-bounce sorting == the fused megakernel shard step bit-for-bit
-    (shared raygen jitter stream), at any mesh shape.  Exercises the
-    clustered traversal (the scene exceeds the 512-tri SMEM budget)."""
+def _bvh_scene():
+    """A BVH scene (past the brute-force threshold) with a metal sphere:
+    the traversal the coffee cells run, at test size."""
     from bpt_tpu.scene.builder import MaterialSpec as M, SceneBuilder
 
     b = SceneBuilder()
     b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.7, 0.3, 0.2)),
-                    lat_steps=24, lon_steps=48)
-    b.add_quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
-               M.lambertian((0.6, 0.6, 0.6)))
-    b.add_quad((-1, 5, -1), (2, 0, 0), (0, 0, 2),
-               M.diffuse_light((9, 9, 9)))
-    big = b.build(dtype=jnp.float32)
-    assert big.num_tris > 512
-
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=12, aspect_ratio=1.0,
-        samples_per_pixel=4, max_depth=3, integrator="pt",
-        lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=40.0)
-    fb_w2, spp = render_distributed(big, cfg, mesh=make_mesh(2), seed=3,
-                                    fast="wave")
-    assert spp == 4
-    fb_w8, _ = render_distributed(big, cfg, mesh=make_mesh(8), seed=3,
-                                  fast="wave")
-    np.testing.assert_array_equal(fb_w2, fb_w8)
-    fb_f, _ = render_distributed(big, cfg, mesh=make_mesh(4), seed=3,
-                                 fast="always")
-    np.testing.assert_array_equal(fb_w2, fb_f)
-
-
-def _clustered_scene():
-    """>512-tri scene (clustered-class traversal off-SMEM)."""
-    from bpt_tpu.scene.builder import MaterialSpec as M, SceneBuilder
-
-    b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.7, 0.3, 0.2)),
-                    lat_steps=24, lon_steps=48)
+                    lat_steps=12, lon_steps=24)
     b.add_uv_sphere((-2, 0.7, 1), 0.7, M.metal((0.8, 0.8, 0.9), 0.05),
-                    lat_steps=16, lon_steps=32)
+                    lat_steps=8, lon_steps=16)
     b.add_quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
                M.lambertian((0.6, 0.6, 0.6)))
     b.add_quad((-1, 5, -1), (2, 0, 0), (0, 0, 2),
                M.diffuse_light((9, 9, 9)))
     big = b.build(dtype=jnp.float32)
-    assert big.num_tris > 512
+    assert big.use_bvh
     return big
 
 
-@pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
-def test_bdpt_wave_shard_matches_single_device(integrator):
-    """Round 5 (VERDICT r4 item 8): the spp-batched bdpt_wave estimator
-    step under pixel sharding (fast='wave' + bdpt integrators) is
-    bit-identical to the single-device render() and mesh-shape
-    invariant — absolute ray ids drive every draw and strata fold in
-    stratum order, so device placement cannot move a bit."""
-    from bpt_tpu.parallel.mesh import render_distributed
+def _bvh_cfg(**kw):
+    base = dict(image_width=12, aspect_ratio=1.0, samples_per_pixel=4,
+                max_depth=3, integrator="pt", lookfrom=(0.0, 2.0, 6.0),
+                lookat=(0.0, 1.0, 0.0), vfov=40.0)
+    base.update(kw)
+    return dataclasses.replace(cornell_box_camera(), **base)
 
-    big = _clustered_scene()
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=12, aspect_ratio=1.0,
-        samples_per_pixel=4, max_depth=3, integrator=integrator,
-        lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=40.0)
-    fb_ref = render(big, cfg, seed=5)
-    fb_w8, spp = render_distributed(big, cfg, mesh=make_mesh(8), seed=5,
-                                    fast="wave")
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+def test_bvh_scene_pixel_sharded_matches_single_device(integrator):
+    """Pixel sharding on a BVH scene is bit-identical to render() and
+    mesh-shape invariant: absolute ray ids drive every draw and no
+    collective runs inside the estimator."""
+    big = _bvh_scene()
+    cfg = _bvh_cfg(integrator=integrator)
+    ref = render(big, cfg, seed=5)
+    fb8, spp = render_distributed(big, cfg, mesh=make_mesh(8), seed=5)
     assert spp == 4
-    np.testing.assert_array_equal(
-        fb_w8, fb_ref.framebuffer_sum.astype(fb_w8.dtype))
-    fb_w2, _ = render_distributed(big, cfg, mesh=make_mesh(2), seed=5,
-                                  fast="wave")
-    np.testing.assert_array_equal(fb_w8, fb_w2)
+    np.testing.assert_array_equal(fb8, ref.framebuffer_sum)
+    fb3, _ = render_distributed(big, cfg, mesh=make_mesh(3), seed=5)
+    np.testing.assert_array_equal(fb8, fb3)
 
 
-def test_bdpt_wave_shard_depth_gate():
-    """fast='wave' BDPT past UNROLL_MAX raises the documented gate
-    (docs/PARITY.md deviation 10) instead of tracing the pathological
-    fori_loop estimator."""
-    from bpt_tpu.models.bdpt import UNROLL_MAX
-    from bpt_tpu.parallel.mesh import render_distributed
+@pytest.mark.parametrize("integrator", ["pt", "bdpt-mis"])
+def test_bvh_scene_spp_sharded_psum_matches_serial(integrator):
+    big = _bvh_scene()
+    cfg = _bvh_cfg(integrator=integrator)
+    mesh = make_mesh(4)
+    cc = camera_constants(cfg, big.dtype)
+    npix = cc.width * cc.height
+    step = render_spp_sharded_step(mesh, integrator, cfg.max_depth,
+                                   cfg.sqrt_spp, npix)
+    fb = np.asarray(step(big, cc, jax.random.PRNGKey(9), jnp.int32(0)))
+    single = render(big, cfg, seed=9)
+    np.testing.assert_allclose(
+        fb.reshape(cc.height, cc.width, 3), single.framebuffer_sum,
+        rtol=1e-5, atol=1e-6)
 
-    big = _clustered_scene()
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=8, aspect_ratio=1.0,
-        samples_per_pixel=1, max_depth=UNROLL_MAX + 1,
-        integrator="bdpt")
-    with pytest.raises(ValueError, match="UNROLL_MAX"):
-        render_distributed(big, cfg, mesh=make_mesh(2), seed=0,
-                           fast="wave")
+
+def test_distributed_defocus_runs_and_blurs(scene):
+    """Defocus (camera.h:230-234) under pixel sharding: the disk draws
+    reach generate_rays (the image differs from the pinhole render), the
+    energy stays put, and the result is mesh-shape invariant and equal
+    to render()."""
+    cfg = _cfg(aspect_ratio=1.0, defocus_angle=8.0, focus_dist=300.0)
+    fb8, _ = render_distributed(scene, cfg, mesh=make_mesh(8), seed=3)
+    fb4, _ = render_distributed(scene, cfg, mesh=make_mesh(4), seed=3)
+    np.testing.assert_array_equal(fb8, fb4)
+    np.testing.assert_array_equal(fb8, render(scene, cfg,
+                                              seed=3).framebuffer_sum)
+    pin = dataclasses.replace(cfg, defocus_angle=0.0)
+    fb_pin, _ = render_distributed(scene, pin, mesh=make_mesh(8), seed=3)
+    assert not np.array_equal(fb8, fb_pin)
+    assert np.isfinite(fb8).all()
+    assert abs(fb8.mean() / max(fb_pin.mean(), 1e-9) - 1.0) < 0.25
 
 
-def test_wave_shard_step_paged_matches_unpaged(monkeypatch):
-    """Round 5: the PAGED pt_wave (per-bounce paged standalone FTB
-    closest + shade-only launch) under pixel sharding == the unpaged
-    wave shard step bitwise.  Forces >= 2 pages via the page-budget
-    override; the paged flag re-resolves per call (pt_wave wrapper),
-    so both variants compile distinct executables in one process."""
-    from bpt_tpu.ops.pallas.clusters import n_pages
-    from bpt_tpu.parallel.mesh import render_distributed
+def test_shard_step_cache_keys_on_traversal_route(monkeypatch, scene):
+    """The mesh step cache keys on soa.use_traversal_kernel: a changed
+    route gets its own step instead of reusing one traced for the other."""
+    from bpt_tpu.ops import soa
+    from bpt_tpu.parallel import mesh as mesh_mod
 
-    big = _clustered_scene()
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=12, aspect_ratio=1.0,
-        samples_per_pixel=4, max_depth=3, integrator="pt",
-        lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=40.0)
-    fb_ref, _ = render_distributed(big, cfg, mesh=make_mesh(4), seed=3,
-                                   fast="wave")
-    monkeypatch.setenv("BPT_TPU_FORCE_PAGED_WAVE", "1")
-    monkeypatch.setenv("BPT_TPU_PAGE_F32", "150")
-    assert n_pages(big) >= 2
-    fb_paged, _ = render_distributed(big, cfg, mesh=make_mesh(4), seed=3,
-                                     fast="wave")
-    np.testing.assert_array_equal(fb_ref, fb_paged)
+    cfg = _cfg(image_width=8, samples_per_pixel=1)
+    mesh = make_mesh(2)
+    render_distributed(scene, cfg, mesh=mesh, seed=0)
+    n0 = mesh_mod.shard_step.cache_info().currsize
+    monkeypatch.setattr(soa, "use_traversal_kernel", lambda s, dt: True)
+    render_distributed(scene, cfg, mesh=mesh, seed=0)  # brute scene: no
+    # kernel call is traced, but the step is still a new cache entry
+    assert mesh_mod.shard_step.cache_info().currsize == n0 + 1

@@ -173,158 +173,3 @@ def test_bvh_structure_invariants():
             pts = np.stack([v0[ti], v0[ti] + e1[ti], v0[ti] + e2[ti]])
             assert (pts >= bmin[ni] - 1e-9).all()
             assert (pts <= bmax[ni] + 1e-9).all()
-
-
-def test_clustered_sorted_dispatch_matches_bvh_oracle(monkeypatch):
-    """The TPU clustered dispatch (payload-sorted wave kernels, round-3
-    lax.sort form) == the jnp BVH oracle — exercised on CPU by forcing
-    the TPU predicate and interpret-mode kernels, so the sort-in /
-    sort-out bookkeeping in _clustered_sorted_closest / any_hit is
-    pinned by the suite (it otherwise only runs on real TPU)."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.core import vec3 as v3
-    from bpt_tpu.ops import soa
-    from bpt_tpu.ops.intersect import T_MIN
-    from bpt_tpu.ops.pallas.cluster_wave import (
-        clustered_any_pallas, clustered_closest_pallas)
-    from bpt_tpu.ops.pallas.clusters import pack_clusters_rolled
-    from bpt_tpu.scene.builder import MaterialSpec as M, SceneBuilder
-
-    b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.7, 0.3, 0.2)),
-                    lat_steps=24, lon_steps=48)  # 2208 tris > 512
-    b.add_quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
-               M.lambertian((0.6, 0.6, 0.6)))
-    scene = b.build(dtype=jnp.float32)
-    assert scene.num_tris > 512
-
-    monkeypatch.setattr(soa, "_on_tpu", lambda: True)
-    monkeypatch.setattr(
-        soa, "_wave_impls",
-        lambda: (pack_clusters_rolled,
-                 functools.partial(clustered_closest_pallas, interpret=True),
-                 functools.partial(clustered_any_pallas, interpret=True)))
-    # the round-4 FTB dispatch branch imports these at call time —
-    # rebind to interpret mode so the (T_MIN, inf) production shape
-    # rides the FTB kernels here exactly as it does on TPU
-    from bpt_tpu.ops.pallas import cluster_wave
-
-    _ftb_closest = cluster_wave.clustered_closest_ftb_pallas
-    _ftb_any = cluster_wave.clustered_any_ftb_pallas
-    monkeypatch.setattr(cluster_wave, "clustered_closest_ftb_pallas",
-                        functools.partial(_ftb_closest, interpret=True))
-    monkeypatch.setattr(cluster_wave, "clustered_any_ftb_pallas",
-                        functools.partial(_ftb_any, interpret=True))
-
-    B = 257  # deliberately not a tile multiple
-    rng = np.random.default_rng(3)
-    o = v3.from_array(jnp.asarray(
-        rng.uniform(-3, 3, (B, 3)) * [1, 0.5, 1] + [0, 2.5, 0],
-        jnp.float32))
-    d = v3.from_array(jnp.asarray(rng.normal(size=(B, 3)), jnp.float32))
-
-    got = soa.closest_hit(scene, o, d, T_MIN, jnp.inf)
-    ref = soa.bvh_closest(scene, o, d, T_MIN,
-                          jnp.full((B,), jnp.inf, jnp.float32))
-    np.testing.assert_array_equal(np.asarray(got.hit), np.asarray(ref.hit))
-    np.testing.assert_allclose(np.asarray(got.t)[np.asarray(got.hit)],
-                               np.asarray(ref.t)[np.asarray(ref.hit)],
-                               rtol=1e-6)
-
-    found = soa.any_hit(scene, o, d, T_MIN, 2.0)
-    # oracle: any hit with t <= 2 exists iff bvh closest t <= 2
-    ref_any = np.asarray(ref.hit) & (np.asarray(ref.t) <= 2.0)
-    got_any = np.asarray(found)
-    # any-hit may differ from closest-hit near the boundary only through
-    # the exact tmax comparison; require equality
-    np.testing.assert_array_equal(got_any, ref_any)
-
-
-def test_paged_clustered_dispatch_matches_single_table(monkeypatch):
-    """Round-4 paging (VERDICT item 7): scenes past the single-table
-    SMEM budget split on super boundaries; the FTB kernels run per page
-    and the dispatch merges min-t / OR.  Forced here with a tiny
-    BPT_TPU_PAGE_F32 budget on a scene that normally fits one table:
-    paged results == unpaged results == the jnp BVH oracle."""
-    import functools
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.core import vec3 as v3
-    from bpt_tpu.ops import soa
-    from bpt_tpu.ops.intersect import T_MIN
-    from bpt_tpu.ops.pallas import cluster_wave
-    from bpt_tpu.ops.pallas.clusters import n_pages
-    from bpt_tpu.scene.builder import MaterialSpec as M, SceneBuilder
-
-    b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.7, 0.3, 0.2)),
-                    lat_steps=24, lon_steps=48)
-    b.add_quad((-6, 0, -6), (12, 0, 0), (0, 0, 12),
-               M.lambertian((0.6, 0.6, 0.6)))
-    scene = b.build(dtype=jnp.float32)
-
-    monkeypatch.setattr(soa, "_on_tpu", lambda: True)
-    monkeypatch.setattr(
-        cluster_wave, "clustered_closest_ftb_pallas",
-        functools.partial(cluster_wave.clustered_closest_ftb_pallas,
-                          interpret=True))
-    monkeypatch.setattr(
-        cluster_wave, "clustered_any_ftb_pallas",
-        functools.partial(cluster_wave.clustered_any_ftb_pallas,
-                          interpret=True))
-
-    B = 257
-    rng = np.random.default_rng(5)
-    o = v3.from_array(jnp.asarray(
-        rng.uniform(-3, 3, (B, 3)) * [1, 0.5, 1] + [0, 2.5, 0],
-        jnp.float32))
-    d = v3.from_array(jnp.asarray(rng.normal(size=(B, 3)), jnp.float32))
-    tmax_any = jnp.asarray(rng.uniform(0.5, 6.0, B), jnp.float32)
-
-    assert n_pages(scene) == 1
-    one_c = soa.closest_hit(scene, o, d, T_MIN, jnp.inf)
-    one_a = np.asarray(soa.any_hit(scene, o, d, T_MIN, tmax_any))
-
-    monkeypatch.setenv("BPT_TPU_PAGE_F32", "150")  # >= 1 super (120 f32)
-    assert n_pages(scene) >= 3
-    paged_c = soa.closest_hit(scene, o, d, T_MIN, jnp.inf)
-    paged_a = np.asarray(soa.any_hit(scene, o, d, T_MIN, tmax_any))
-
-    np.testing.assert_array_equal(np.asarray(paged_c.hit),
-                                  np.asarray(one_c.hit))
-    np.testing.assert_array_equal(np.asarray(paged_c.t),
-                                  np.asarray(one_c.t))
-    np.testing.assert_array_equal(np.asarray(paged_c.tri),
-                                  np.asarray(one_c.tri))
-    # barycentric payload too: the textured jnp wavefront on past-budget
-    # scenes rides this path (complete_hit's UV interpolation)
-    np.testing.assert_array_equal(np.asarray(paged_c.u),
-                                  np.asarray(one_c.u))
-    np.testing.assert_array_equal(np.asarray(paged_c.v),
-                                  np.asarray(one_c.v))
-    np.testing.assert_array_equal(paged_a, one_a)
-
-    ref = soa.bvh_closest(scene, o, d, T_MIN,
-                          jnp.full((B,), jnp.inf, jnp.float32))
-    np.testing.assert_array_equal(np.asarray(paged_c.hit),
-                                  np.asarray(ref.hit))
-    np.testing.assert_allclose(np.asarray(paged_c.t)[np.asarray(ref.hit)],
-                               np.asarray(ref.t)[np.asarray(ref.hit)],
-                               rtol=1e-6)
-
-    # the sparse any path pages too
-    mask = jnp.asarray(rng.uniform(size=B) < 0.15)
-    ref_s = np.asarray(soa.brute_any(
-        scene, o, d, jnp.full((B,), T_MIN, jnp.float32), tmax_any))
-    got_s = np.asarray(soa.any_hit_sparse(
-        scene, o, d, T_MIN, tmax_any, mask=mask, cap=128, interpret=True))
-    m = np.asarray(mask)
-    np.testing.assert_array_equal(got_s[m], ref_s[m])
-    assert not got_s[~m].any()

@@ -61,13 +61,18 @@ def test_build_speed_sanity():
     assert (skip > np.arange(len(skip))).all()
 
 
-def test_packed_splits_fill_streaming_blocks():
-    """Round-3 packing-aware split (scene/bvh.py rec + the native
-    builder): on a BALANCED mesh every maximal <=32-tri subtree fills
-    its streaming block (median splits left them at ~70%, an
-    irreducible roll-step tax — docs/ROADMAP.md round-3 campaign)."""
-    import numpy as np
+def _subtree_tris(skip, count):
+    """Triangles under each node of a preorder/skip-link BVH."""
+    pre = np.zeros(len(skip) + 1, np.int64)
+    pre[1:] = np.cumsum(count)
+    return pre[np.asarray(skip)] - pre[:-1]
 
+
+def test_packed_splits_fill_streaming_blocks():
+    """The 32-multiple split (scene/bvh.py rec + the native builder): on a
+    balanced mesh of a 32-multiple size every maximal <=32-tri subtree is
+    full and every leaf holds 2 triangles — the fewer nodes the GPU
+    traversal kernel walks (PERF.md)."""
     from bpt_tpu.scene import bvh as bvh_mod
 
     rng = np.random.default_rng(5)
@@ -75,15 +80,36 @@ def test_packed_splits_fill_streaming_blocks():
     c = rng.uniform(0, 10, (T, 3))
     h = rng.uniform(0.01, 0.05, (T, 3))
     tree = bvh_mod.build_bvh(c - h, c + h)
-    cs = np.asarray(bvh_mod.subtree_splits(
-        tree["bvh_skip"], tree["bvh_count"], 32))
-    sizes = np.diff(cs)
-    assert sizes.max() <= 32
-    assert sizes.sum() == T
-    # full blocks everywhere on a 32-multiple-sized balanced mesh
-    assert float(sizes.mean()) == 32.0
+    skip, count = tree["bvh_skip"], tree["bvh_count"]
+    tris = _subtree_tris(skip, count)
+    sizes, pos = [], 0
+    while pos < len(skip):  # maximal subtrees of <= 32 triangles
+        if tris[pos] <= 32:
+            sizes.append(int(tris[pos]))
+            pos = int(skip[pos])
+        else:
+            pos += 1
+    assert sum(sizes) == T and set(sizes) == {32}
+    assert (count[count > 0] == 2).all()
+    assert len(skip) == T - 1
 
     # the numpy and native builders agree on the packed policy too
     tree_py = bvh_mod.build_bvh(c - h, c + h, use_native=False)
     np.testing.assert_array_equal(tree["bvh_skip"], tree_py["bvh_skip"])
     np.testing.assert_array_equal(tree["order"], tree_py["order"])
+
+
+@pytest.mark.parametrize("n", [33, 97, 1000])
+def test_split_stays_within_16_of_the_median(n):
+    """Every internal node splits within 16 triangles of its median, so
+    box quality matches the reference's span/2 split at depth."""
+    from bpt_tpu.scene import bvh as bvh_mod
+
+    rng = np.random.default_rng(n)
+    c = rng.uniform(0, 10, (n, 3))
+    tree = bvh_mod.build_bvh(c - 0.05, c + 0.05)
+    skip, count = tree["bvh_skip"], tree["bvh_count"]
+    tris = _subtree_tris(skip, count)
+    for i in np.nonzero(count == 0)[0]:
+        left = tris[i + 1]
+        assert abs(int(left) - int(tris[i]) // 2) <= 16

@@ -110,27 +110,50 @@ def test_checkpoint_records_chunk_size_and_stream(tmp_path):
 
 
 def test_chunk_resume_rejects_mismatched_chunk_size(small_scene):
-    """Resuming a chunk-kind checkpoint with a different chunk_size would
-    silently mis-place pixel chunks — must raise instead."""
+    """Chunk-kind checkpoints came from the removed fused path; resuming
+    one (here with another chunk size) must raise, not render."""
     resume = dict(framebuffer_sum=np.zeros((16, 16, 3), np.float32),
                   strata_done=1, units_done=1, unit_kind="chunk",
                   chunk_size=128, seed=0)
-    # the fused path only exists on TPU; off-TPU the chunk kind raises
-    # the loop-shape error, which also guards the mismatch. On either
-    # path the render must NOT proceed silently.
     with pytest.raises(ValueError):
         render(small_scene, _cfg(), seed=0, resume=resume, chunk_size=64)
 
 
 def test_stratum_resume_rejects_foreign_stream(small_scene):
-    """A stratum checkpoint written by the pt_wave/fused-parity jitter
-    stream must not silently continue on the jnp wavefront loop (the two
-    streams differ; mixing breaks bitwise-identical resume)."""
+    """A stratum checkpoint written by another RNG stream must not
+    silently continue on the jnp wavefront loop (the streams differ;
+    mixing breaks bitwise-identical resume)."""
     resume = dict(framebuffer_sum=np.zeros((16, 16, 3), np.float32),
                   strata_done=1, units_done=1, unit_kind="stratum",
                   stream="wave", seed=0)
     with pytest.raises(ValueError, match="stream"):
         render(small_scene, _cfg(), seed=0, resume=resume)
+
+
+@pytest.mark.parametrize("kind,stream", [("chunk", ""), ("chunk", "jnp"),
+                                         ("stratum", "fused"),
+                                         ("pixel", "jnp")])
+def test_resume_of_removed_checkpoint_kind_raises(small_scene, kind, stream):
+    resume = dict(framebuffer_sum=np.zeros((16, 16, 3), np.float32),
+                  strata_done=2, units_done=2, unit_kind=kind, seed=0)
+    if stream:
+        resume["stream"] = stream
+    with pytest.raises(ValueError, match="no longer has"):
+        render(small_scene, _cfg(), seed=0, resume=resume)
+
+
+def test_resume_without_stream_field_is_jnp_stratum(small_scene):
+    """Stratum checkpoints predating the ``stream`` field were written by
+    the jnp loop and still resume to the straight run's image."""
+    cfg = _cfg()
+    states = []
+    full = render(small_scene, cfg, seed=5,
+                  stratum_callback=lambda s: states.append(dict(s)))
+    mid = dict(states[1])
+    del mid["stream"], mid["unit_kind"]
+    resumed = render(small_scene, cfg, seed=5, resume=mid)
+    np.testing.assert_allclose(full.framebuffer_sum, resumed.framebuffer_sum,
+                               atol=1e-5)
 
 
 def test_ref_vis_mode_dims_connections(small_scene):
@@ -145,105 +168,6 @@ def test_ref_vis_mode_dims_connections(small_scene):
     assert np.isfinite(emul).all()
     # globally dimmer by a large factor on this connection-dominated scene
     assert emul.sum() < 0.8 * base.sum()
-
-
-def test_wave_raygen_jitter_parity():
-    """The pt_wave driver's host-side jitter (_raygen_jitter_host) must
-    equal the fused megakernel's in-kernel raygen stream: the kernel
-    reads the two u32 key halves at the tail of _subkeys_with_raygen and
-    takes BOTH outputs of one threefry call (pt_kernel._pt_kernel_impl).
-    Round 1 shipped a drift here (two separate jitter keys host-side);
-    this pins the invariant."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.models.render import _raygen_jitter_host
-    from bpt_tpu.ops.pallas.pt_kernel import (
-        NU,
-        _bits_to_unit_float,
-        _subkeys_with_raygen,
-        _threefry2x32,
-    )
-
-    key = jax.random.PRNGKey(42)
-    ray_ids = jnp.arange(1000, dtype=jnp.int32) * 7 + 3
-    u0_host, u1_host = _raygen_jitter_host(key, ray_ids)
-
-    # kernel-side: exactly what _pt_kernel_impl does with the prefetched
-    # key table (nj = nu_eff; k1a/k1b at nj*2, one call, both outputs)
-    keys_flat = _subkeys_with_raygen(key, NU)
-    nj = NU
-    k1a = keys_flat[nj * 2]
-    k1b = keys_flat[nj * 2 + 1]
-    ridu = ray_ids.astype(jnp.uint32)
-    b0, b1 = _threefry2x32(k1a, k1b, ridu, jnp.zeros_like(ridu))
-    np.testing.assert_array_equal(np.asarray(u0_host),
-                                  np.asarray(_bits_to_unit_float(b0)))
-    np.testing.assert_array_equal(np.asarray(u1_host),
-                                  np.asarray(_bits_to_unit_float(b1)))
-
-
-def test_wave_raygen_defocus_stream():
-    """Round 4 (defocus on the wave fast path): the defocus=True variant
-    of _raygen_jitter_host keeps the base jitter pair BIT-IDENTICAL
-    (checkpoint/stream compatibility) and draws the disk pair from an
-    independent threefry counter (no reuse of the jitter bits)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.models.render import _raygen_jitter_host
-
-    key = jax.random.PRNGKey(13)
-    ids = jnp.arange(4096, dtype=jnp.int32) * 3 + 1
-    u0, u1 = _raygen_jitter_host(key, ids)
-    d0, d1, d2, d3 = _raygen_jitter_host(key, ids, defocus=True)
-    np.testing.assert_array_equal(np.asarray(u0), np.asarray(d0))
-    np.testing.assert_array_equal(np.asarray(u1), np.asarray(d1))
-    for extra in (d2, d3):
-        e = np.asarray(extra)
-        assert ((0.0 <= e) & (e < 1.0)).all()
-        assert not np.array_equal(e, np.asarray(d0))
-        assert not np.array_equal(e, np.asarray(d1))
-    # distinct streams decorrelate: matching values are coincidences
-    assert (np.asarray(d2) == np.asarray(d0)).mean() < 0.01
-
-
-def test_distributed_wave_defocus_runs_and_blurs():
-    """Round 4: defocus rides the wave fast path (mesh use_wave no
-    longer gates on cc.defocus; shard_step_wave draws the disk pair).
-    The defocus render must differ from the pinhole render (the disk
-    draws reach generate_rays) while conserving overall energy
-    approximately, and be mesh-shape invariant."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.parallel.mesh import make_mesh, render_distributed
-    from bpt_tpu.scene.presets import cornell_box, cornell_box_camera
-
-    scene = cornell_box(dtype=jnp.float32)
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=16, aspect_ratio=1.0,
-        samples_per_pixel=4, max_depth=3, integrator="pt",
-        defocus_angle=8.0, focus_dist=300.0)
-    devs = jax.devices()
-    fb8, _ = render_distributed(
-        scene, cfg, mesh=make_mesh(devices=devs), seed=3, fast="wave")
-    fb4, _ = render_distributed(
-        scene, cfg, mesh=make_mesh(devices=devs[:4]), seed=3, fast="wave")
-    np.testing.assert_array_equal(fb8, fb4)
-
-    pin = dataclasses.replace(cfg, defocus_angle=0.0)
-    fb_pin, _ = render_distributed(
-        scene, pin, mesh=make_mesh(devices=devs), seed=3, fast="wave")
-    assert not np.array_equal(fb8, fb_pin)
-    assert np.isfinite(fb8).all()
-    # blur redistributes, it does not create/destroy much energy
-    assert abs(fb8.mean() / max(fb_pin.mean(), 1e-9) - 1.0) < 0.25
 
 
 def test_render_resilient_resumes_after_failure():
@@ -331,80 +255,7 @@ def test_render_resilient_exhausts_retries(monkeypatch):
     assert calls["n"] == 1
 
 
-def test_morton_pix_is_in_range_permutation():
-    """_morton_pix (round 3): reorders a chunk's pixel ids Morton-wise
-    for the fused clustered steps — must be a permutation that keeps
-    every in-range pixel and parks out-of-range padding at the end."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from bpt_tpu.models.render import _morton_pix
-
-    npix, width, chunk = 300, 20, 512  # chunk overhangs npix
-    pix = jnp.arange(chunk, dtype=jnp.int32)
-    out = np.asarray(_morton_pix(pix, npix, width))
-    assert sorted(out.tolist()) == list(range(chunk))
-    assert set(out[:npix].tolist()) == set(range(npix))  # padding last
-    # locality: consecutive Morton ids stay spatially close on average
-    iv, jv = out[:npix] % width, out[:npix] // width
-    d = np.abs(np.diff(iv)) + np.abs(np.diff(jv))
-    raster = np.arange(npix)
-    ri, rj = raster % width, raster // width
-    dr = np.abs(np.diff(ri)) + np.abs(np.diff(rj))
-    assert d.mean() <= dr.mean() + 1.0
-
-
-def test_render_wave_branch_populates_traversal_stats(monkeypatch):
-    """VERDICT r3 item 5: the pt_wave render branch must read back ALL
-    six stats_acc slots — node visits / AABB hits / tri tests / tri hits
-    were silently dropped on exactly the large/textured-scene renders
-    where they diagnose traversal (models/render.py wave branch)."""
-    import functools
-
-    import bpt_tpu.models.render as R
-    import bpt_tpu.ops.pallas.pt_wave as PW
-    from bpt_tpu.scene.builder import MaterialSpec as M
-    from bpt_tpu.scene.builder import SceneBuilder
-
-    b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.6, 0.6, 0.6)))
-    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20),
-               M.lambertian((0.6, 0.6, 0.6)))
-    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4),
-               M.diffuse_light((10, 10, 10)))
-    scene = b.build(dtype=jnp.float32)  # >512 tris -> clustered kernels
-
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=20, samples_per_pixel=1,
-        max_depth=2, integrator="pt",
-        lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=40.0,
-    )
-    # force the wave branch off-TPU, in interpret mode
-    monkeypatch.setattr(R, "_can_use_pt_wave", lambda *a, **k: True)
-    monkeypatch.setattr(PW, "pt_wave",
-                        functools.partial(PW.pt_wave, interpret=True))
-    R._make_step_pt_wave.cache_clear()
-    try:
-        res = R.render(scene, cfg, seed=3)
-    finally:
-        R._make_step_pt_wave.cache_clear()  # drop the interpret closure
-    assert res.stats.rays_traced > 0
-    assert res.stats.bvh_node_visits > 0
-    assert res.stats.aabb_hits > 0
-    assert res.stats.triangle_tests > 0
-    assert res.stats.triangle_hits > 0
-
-
-@pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
-def test_bdpt_wave_branch_bitwise_matches_stratum_loop(monkeypatch,
-                                                       integrator):
-    """Round 4: the spp-batched bdpt_wave render branch must be
-    bit-identical to the jnp stratum loop (same streams, absolute ray
-    ids, stratum-order left fold) — checkpoints interoperate on the
-    strength of this."""
-    import numpy as np
-
-    import bpt_tpu.models.render as R
+def _bvh_scene():
     from bpt_tpu.scene.builder import MaterialSpec as M
     from bpt_tpu.scene.builder import SceneBuilder
 
@@ -414,60 +265,86 @@ def test_bdpt_wave_branch_bitwise_matches_stratum_loop(monkeypatch,
                M.lambertian((0.6, 0.6, 0.6)))
     b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4),
                M.diffuse_light((10, 10, 10)))
-    scene = b.build(dtype=jnp.float32)
+    return b.build(dtype=jnp.float32)
 
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=12, samples_per_pixel=4,
-        max_depth=3, integrator=integrator,
-        lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=40.0,
-    )
-    ref = R.render(scene, cfg, seed=11)  # CPU: bottom jnp stratum loop
 
-    monkeypatch.setattr(R, "_can_use_bdpt_wave", lambda *a, **k: True)
-    R._make_step_bdpt_wave.cache_clear()
-    got = R.render(scene, cfg, seed=11)
-    assert np.array_equal(ref.framebuffer_sum, got.framebuffer_sum)
-    assert ref.stats.rays_traced == got.stats.rays_traced
-    assert ref.stats.shadow_rays == got.stats.shadow_rays
+def _bvh_cfg(**kw):
+    base = dict(image_width=12, aspect_ratio=1.0, samples_per_pixel=4,
+                max_depth=3, integrator="pt", lookfrom=(0.0, 2.0, 6.0),
+                lookat=(0.0, 1.0, 0.0), vfov=40.0)
+    base.update(kw)
+    return dataclasses.replace(cornell_box_camera(), **base)
 
-    # and a mid-render stratum checkpoint from the jnp loop resumes on
-    # the wave branch to the same image
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+def test_render_bvh_scene_populates_traversal_stats(integrator):
+    """BVH scenes report every traversal counter (node visits, AABB
+    hits, triangle tests and hits) next to the ray counts."""
+    scene = _bvh_scene()
+    assert scene.use_bvh
+    res = render(scene, _bvh_cfg(integrator=integrator, samples_per_pixel=1),
+                 seed=3)
+    assert res.stats.rays_traced > 0
+    assert res.stats.bvh_node_visits > 0
+    assert res.stats.aabb_hits > 0
+    assert res.stats.triangle_tests > 0
+    assert res.stats.triangle_hits > 0
+    assert res.stats.bvh_nodes_built == scene.bvh_skip.shape[0]
+    if integrator != "pt":
+        assert res.stats.shadow_rays > 0
+
+
+@pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
+def test_bvh_scene_chunk_and_resume_invariance(integrator):
+    """On the BVH scene, chunking and a mid-render stratum resume give
+    the straight run's image bit for bit (absolute ray ids drive every
+    draw)."""
+    scene = _bvh_scene()
+    cfg = _bvh_cfg(integrator=integrator)
+    ref = render(scene, cfg, seed=11)
+    chunked = render(scene, cfg, seed=11, chunk_size=50)
+    np.testing.assert_array_equal(ref.framebuffer_sum,
+                                  chunked.framebuffer_sum)
     states = []
-    monkeypatch.setattr(R, "_can_use_bdpt_wave", lambda *a, **k: False)
-    R.render(scene, cfg, seed=11,
-             stratum_callback=lambda s: states.append(dict(s)))
-    monkeypatch.setattr(R, "_can_use_bdpt_wave", lambda *a, **k: True)
-    resumed = R.render(scene, cfg, seed=11, resume=states[1])
-    assert np.array_equal(ref.framebuffer_sum, resumed.framebuffer_sum)
+    render(scene, cfg, seed=11,
+           stratum_callback=lambda s: states.append(dict(s)))
+    resumed = render(scene, cfg, seed=11, resume=states[1])
+    np.testing.assert_array_equal(ref.framebuffer_sum,
+                                  resumed.framebuffer_sum)
 
 
-def test_bdpt_wave_gate_rejects_past_unroll_depth(monkeypatch):
-    """Round 5 (VERDICT r4 missing 3): past UNROLL_MAX the jnp
-    estimator's loops fall back to fori_loop + dynamic row slicing —
-    the minutes-to-compile XLA pathology — so _can_use_bdpt_wave must
-    route deep clustered BDPT (the depth-80 glass class) to the fused
-    megakernel instead."""
-    import jax
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
 
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("limit,want", [
+    (None, 256 << 20),                       # CPU: no device limit
+    (80 << 30, (80 << 30) // 16),            # card: a 1/16 share
+    (16 << 30, (16 << 30) // 16),
+])
+def test_vertex_budget_follows_device_memory(monkeypatch, limit, want):
     import bpt_tpu.models.render as R
-    from bpt_tpu.models.bdpt import UNROLL_MAX
-    from bpt_tpu.models.camera import camera_constants
-    from bpt_tpu.scene.builder import MaterialSpec as M
-    from bpt_tpu.scene.builder import SceneBuilder
 
-    b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, M.lambertian((0.6, 0.5, 0.4)))  # 960 tris
-    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4),
-               M.diffuse_light((10, 10, 10)))
-    scene = b.build(dtype=jnp.float32)
-    assert scene.num_tris > 512  # clustered class
+    stats = None if limit is None else {"bytes_limit": limit}
+    monkeypatch.setattr(R.jax, "devices", lambda: [_FakeDevice(stats)])
+    assert R._vertex_budget_bytes() == want
 
-    cfg = dataclasses.replace(
-        cornell_box_camera(), image_width=512, samples_per_pixel=16,
-        integrator="bdpt-mis")
-    cc = camera_constants(cfg, dtype=jnp.float32)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert R._can_use_bdpt_wave(scene, cc, "bdpt-mis", None, UNROLL_MAX)
-    assert not R._can_use_bdpt_wave(scene, cc, "bdpt-mis", None,
-                                    UNROLL_MAX + 1)
-    assert not R._can_use_bdpt_wave(scene, cc, "bdpt-mis", None, 80)
+
+def test_default_chunk_size_scales_with_device_memory(monkeypatch):
+    import bpt_tpu.models.render as R
+
+    def chunk(limit, integrator="bdpt-mis", depth=10, npix=512 * 512):
+        monkeypatch.setattr(R.jax, "devices", lambda: [_FakeDevice(
+            {"bytes_limit": limit})])
+        return R.default_chunk_size(integrator, depth, npix)
+
+    # d10 bdpt-mis: 6,880 bytes of vertex/MIS storage per ray
+    assert chunk(1 << 30) == (1 << 30) // 16 // 6880
+    assert chunk(80 << 30) == 1 << 18   # capped at one 512^2 stratum
+    assert chunk(80 << 30, npix=100) == 1024  # floor
+    assert chunk(1 << 30, integrator="pt") == 1 << 18
+    assert chunk(16 << 30, depth=80) < chunk(16 << 30, depth=10)

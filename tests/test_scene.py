@@ -407,7 +407,7 @@ class TestVolumeYaml:
 
 
 class TestBuilderTransforms:
-    """VERDICT r3 item 10: generic rotate_y/translate instancing baked at
+    """Generic rotate_y/translate instancing baked at
     build for every builder primitive (the reference wraps ANY hittable,
     src/objects/hittable.h:46-120; we bake like add_box always did)."""
 

@@ -1,9 +1,6 @@
-"""Round-4 capacity proof (VERDICT item 7): render a ~1M-tri scene on
-the TPU through the PAGED clustered dispatch (any speed).
-
-The scene is a dense uv-sphere (lat x lon tessellation) over a floor —
-past the single-table budget, so the fused/pt_wave paths reject and the
-jnp wavefront rides the paged FTB kernels.
+"""Render a generated ~1M-triangle scene (any speed): a dense uv-sphere
+(lat x lon tessellation) over a floor under an area light.  On the GPU
+its BVH walks run in the traversal kernel (ops/pallas/bvh_walk.py).
 
 Usage: python tools/probe_1m.py [lat [size [spp]]]   (default 500 -> ~1M)
 """
@@ -41,13 +38,8 @@ def main():
     b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4),
                M.diffuse_light((9, 9, 9)))
     scene = b.build(dtype=jnp.float32)
-    from bpt_tpu.ops.pallas.clusters import cluster_ok, n_pages
-
-    print(f"tris={scene.num_tris} pages={n_pages(scene)} "
-          f"single_table_ok={cluster_ok(scene)} "
+    print(f"tris={scene.num_tris} nodes={scene.bvh_skip.shape[0]} "
           f"build={time.time() - t0:.1f}s", flush=True)
-    if lat >= 300:
-        assert not cluster_ok(scene), "scene must exceed the single table"
 
     cfg = CameraConfig(
         image_width=size, aspect_ratio=1.0, samples_per_pixel=spp,

@@ -1,4 +1,4 @@
-"""VERDICT r3 item 9: run the FULL BDPT north-star configs for real.
+"""Run the FULL BDPT north-star configs for real.
 
 Glass stand-in (scenes/glass/glass_standin.yaml, 510 tris) at
 1920x1080, max_depth 80, 1024 spp — pt (reference point), bdpt, and
@@ -7,8 +7,8 @@ tonemapped RMSE of each BDPT variant vs the PT render (bdpt is
 ~2x brighter BY DESIGN — no MIS overcounting, PARITY dev. 7; bdpt-mis
 is the consistent estimator and should sit near PT).
 
-Est. ~70 min of chip time total (round-3 rates: PT 149 s, bdpt ~23 min,
-bdpt-mis ~39 min).  Usage: python tools/run_northstar_bdpt.py [spp]
+Chip time on the GPU: not measured.  Usage:
+python tools/run_northstar_bdpt.py [spp]
 """
 from __future__ import annotations
 
